@@ -1,12 +1,12 @@
 """Forward/adjoint roundtrip on the analytic Shepp-Logan phantom.
 
 The library analog of the reference's RUNME1 -> RUNME3 phantom flow
-(`/root/reference/src/RUNME1_tron_degrid_phantom.sh`,
+(`src/RUNME1_tron_degrid_phantom.sh`,
 `src/RUNME3_tron_grid_all.sh:6`): synthesize golden-angle radial k-space
 from an image with the forward NUFFT (degridding), reconstruct it with
 the adjoint (gridding + IFFT + deapodization), and report accuracy.
 
-Runs on whatever JAX platform is default (TPU when available); pass
+Runs on whatever JAX platform is default (the GPU when available); pass
 --cpu to force CPU.  Usage:
 
     python examples/01_phantom_roundtrip.py [--n 128] [--npe 256] [--cpu]
@@ -35,19 +35,18 @@ def main(argv=None) -> int:
 
     import jax.numpy as jnp
 
-    from tron_tpu import ReconConfig, nufft_adjoint, nufft_forward
-    from tron_tpu.phantom import shepp_logan
-    from tron_tpu.trajectory import spoke_angles
-    from tron_tpu.utils.xfer import to_device, to_host
+    from tron_jax import ReconConfig, nufft_adjoint, nufft_forward
+    from tron_jax.phantom import shepp_logan
+    from tron_jax.trajectory import spoke_angles
 
     cfg = ReconConfig(golden_angle=True, sdc="ideal")
     img = shepp_logan(args.n).astype(np.complex64)
     angles = jnp.asarray(spoke_angles(args.npe, "golden", 0))
 
     # image -> radial k-space (nc=1 leading axis; any leading axes batch)
-    data = nufft_forward(to_device(img[None]), angles, cfg)
+    data = nufft_forward(jnp.asarray(img[None]), angles, cfg)
     # radial k-space -> image (SDC + gridding + centered IFFT + deapod)
-    rec = to_host(nufft_adjoint(data, angles, cfg))[0]
+    rec = np.asarray(nufft_adjoint(data, angles, cfg))[0]
 
     m, ref = np.abs(rec), np.abs(img)
     s = float(np.vdot(m, ref).real / np.vdot(m, m).real)  # ls scale

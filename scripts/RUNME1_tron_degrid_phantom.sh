@@ -6,6 +6,6 @@ set -e
 cd "$(dirname "$0")/.."
 mkdir -p output
 # generate the phantom fixture (the reference ships it via git-lfs)
-python -m tron_tpu.tools.make_phantom output/shepplogan.ra --n 256
-python -m tron_tpu.cli output/shepplogan.ra output/sl_data_tron.ra
+python -m tron_jax.tools.make_phantom output/shepplogan.ra --n 256
+python -m tron_jax.cli output/shepplogan.ra output/sl_data_tron.ra
 echo "wrote output/sl_data_tron.ra"

@@ -43,19 +43,18 @@ def main():
     )
     args = p.parse_args()
 
-    from tron_tpu.utils import enable_compilation_cache
+    from tron_jax.utils import enable_compilation_cache
 
     enable_compilation_cache()
 
     import jax
 
-    from tron_tpu.config import ReconConfig
-    from tron_tpu.io import ra_read
-    from tron_tpu.io.native import ra_read_profiles
-    from tron_tpu.metrics import nmse, ssim
-    from tron_tpu.phantom import birdcage_sensitivities, shepp_logan
-    from tron_tpu.recon import reconstruct_frame
-    from tron_tpu.utils.xfer import to_device, to_host
+    from tron_jax.config import ReconConfig
+    from tron_jax.io import ra_read
+    from tron_jax.io.native import ra_read_profiles
+    from tron_jax.metrics import nmse, ssim
+    from tron_jax.phantom import birdcage_sensitivities, shepp_logan
+    from tron_jax.recon import reconstruct_frame
 
     rec = ra_read(args.img)  # (1, nt, nx, ny, nz)
     nz = rec.shape[-1]
@@ -68,7 +67,7 @@ def main():
         adjoint=True,
         backend="jnp",
     )
-    from tron_tpu.io import ra_query
+    from tron_jax.io import ra_query
 
     hdr = ra_query(args.data)
     nro, npe1 = int(hdr.dims[2]), int(hdr.dims[3])
@@ -90,8 +89,8 @@ def main():
     if args.oracle:
         import jax.numpy as jnp
 
-        from tron_tpu.oracle import oracle_adjoint_recon
-        from tron_tpu.trajectory import spoke_angles
+        from tron_jax.oracle import oracle_adjoint_recon
+        from tron_jax.trajectory import spoke_angles
 
         @jax.jit
         def _oracle(win, skip):
@@ -113,9 +112,9 @@ def main():
         frame = np.abs(rec[0, 0, :, :, z])
         pe0 = z * slide
         win = ra_read_profiles(args.data, pe0, work)[:, 0].transpose(0, 2, 1)
-        win_d = to_device(np.ascontiguousarray(win))
+        win_d = jnp.asarray(np.ascontiguousarray(win))
         ref = np.abs(
-            to_host(ref_fn(win_d, cfg.skip_angles + pe0))
+            np.asarray(ref_fn(win_d, cfg.skip_angles + pe0))
         ).T  # .ra x/y slots are transposed vs the recon's (y, x)
         row = {
             "label": args.label or os.path.basename(args.img),
@@ -126,7 +125,7 @@ def main():
             "nmse_vs_truth": round(float(nmse(scale_to(frame, truth), truth)), 6),
         }
         if oracle_fn is not None:
-            orc = np.abs(to_host(oracle_fn(win_d, cfg.skip_angles + pe0))).T
+            orc = np.abs(np.asarray(oracle_fn(win_d, cfg.skip_angles + pe0))).T
             row["oracle_nrmse"] = round(
                 float(np.linalg.norm(frame - orc) / np.linalg.norm(orc)), 7
             )

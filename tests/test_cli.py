@@ -5,9 +5,9 @@ the file interface — the RUNME1/RUNME3 flow in miniature."""
 import numpy as np
 import pytest
 
-from tron_tpu.cli import build_parser, main
-from tron_tpu.io import ra_read, ra_query, ra_write
-from tron_tpu.phantom import shepp_logan
+from tron_jax.cli import build_parser, main
+from tron_jax.io import ra_read, ra_query, ra_write
+from tron_jax.phantom import shepp_logan
 
 
 @pytest.fixture
@@ -77,3 +77,13 @@ def test_bad_input_rank(tmp_path, rng):
     p = tmp_path / "bad.ra"
     ra_write(rng.standard_normal((4, 4)).astype(np.complex64), p)
     assert main([str(p), str(tmp_path / "o.ra")]) == 1
+
+
+@pytest.mark.parametrize("device", [8, 99])
+def test_device_index_with_no_device(phantom_ra, tmp_path, capsys, device):
+    """-g naming no device is an error (exit 1), not silently device 0."""
+    p, _ = phantom_ra
+    out = tmp_path / "o.ra"
+    assert main(["-g", str(device), str(p), str(out)]) == 1
+    assert "error: -g" in capsys.readouterr().err
+    assert not out.exists()

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from tron_tpu.cli import main
-from tron_tpu.io import ra_query, ra_read, ra_write
-from tron_tpu.phantom import shepp_logan
+from tron_jax.cli import main
+from tron_jax.io import ra_query, ra_read, ra_write
+from tron_jax.phantom import shepp_logan
 
 
 def _phantom_data(tmp_path, n=16, scheme=["--scheme", "linear_half"]):
@@ -120,8 +120,8 @@ def test_stream_matches_in_memory(tmp_path, rng):
 def test_streaming_driver_small_blocks(tmp_path, rng):
     """Force several blocks (batch_frames < nz) through the streaming
     driver directly and compare with recon_radial2d."""
-    from tron_tpu.config import ReconConfig
-    from tron_tpu.recon import recon_radial2d, recon_radial2d_streaming
+    from tron_jax.config import ReconConfig
+    from tron_jax.recon import recon_radial2d, recon_radial2d_streaming
 
     nc, nro, npe1 = 2, 32, 120
     d = (rng.standard_normal((nc, 1, nro, npe1, 1)) +
@@ -209,9 +209,9 @@ def test_streaming_driver_sharded_blocks(tmp_path, rng):
     blocks through the one compiled sharded program (nonzero skip0 path)."""
     import jax
 
-    from tron_tpu.config import ReconConfig
-    from tron_tpu.parallel import make_mesh
-    from tron_tpu.recon import recon_radial2d, recon_radial2d_streaming
+    from tron_jax.config import ReconConfig
+    from tron_jax.parallel import make_mesh
+    from tron_jax.recon import recon_radial2d, recon_radial2d_streaming
 
     nc, nro, npe1 = 2, 32, 120
     d = (rng.standard_normal((nc, 1, nro, npe1, 1)) +
@@ -366,8 +366,8 @@ def test_half_readback_exact(rng):
     """f16 device-side readback (recon_radial2d half_readback) must be
     value-identical to host-side --half conversion of the f32 images —
     the f16 -> f32 -> f16 roundtrip is exact."""
-    from tron_tpu.config import ReconConfig
-    from tron_tpu.recon import recon_radial2d
+    from tron_jax.config import ReconConfig
+    from tron_jax.recon import recon_radial2d
 
     nc, nro, npe1 = 2, 32, 48
     d = (rng.standard_normal((nc, 1, nro, npe1)) +
@@ -447,7 +447,7 @@ def test_stream_coil_basis_chunked(tmp_path, rng):
     """_stream_coil_basis: the chunked disk Gram must equal the one-shot
     whole-file Gram (same eigenbasis) regardless of chunk size, per
     repetition."""
-    from tron_tpu.recon import _stream_coil_basis
+    from tron_jax.recon import _stream_coil_basis
 
     nc, nt, nro, npe1 = 3, 2, 16, 50
     d = (rng.standard_normal((nc, nt, nro, npe1, 1)) +

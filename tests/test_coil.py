@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tron_tpu.ops.coil import coil_combine_sos, coil_combine_walsh, _box_filter
+from tron_jax.ops.coil import coil_combine_sos, coil_combine_walsh, _box_filter
 
 
 def test_sos_basic(rng):
@@ -78,7 +78,7 @@ def test_walsh_matches_naive_dense(rng):
 def test_walsh_frames_chunking_matches_per_frame(rng):
     """coil_combine_walsh_frames (lax.map chunked) == per-frame combine,
     including a frame_block that does not divide nz."""
-    from tron_tpu.ops.coil import coil_combine_walsh_frames
+    from tron_jax.ops.coil import coil_combine_walsh_frames
 
     nz, C, n = 5, 3, 8
     stack = (
@@ -100,7 +100,7 @@ def test_walsh_single_channel(rng):
 def test_coil_compress_rank_recovery(rng):
     """Data spanning a rank-2 coil subspace compresses to 2 channels with
     no information loss (SoS image preserved)."""
-    from tron_tpu.ops.coil import coil_compress
+    from tron_jax.ops.coil import coil_compress
 
     C, npe, nro = 6, 8, 16
     base = (rng.standard_normal((2, npe, nro)) + 1j * rng.standard_normal((2, npe, nro))).astype(np.complex64)
@@ -116,7 +116,7 @@ def test_coil_compress_rank_recovery(rng):
 
 
 def test_coil_compress_passthrough(rng):
-    from tron_tpu.ops.coil import coil_compress
+    from tron_jax.ops.coil import coil_compress
 
     x = jnp.asarray((rng.standard_normal((3, 4, 8)) + 0j).astype(np.complex64))
     assert coil_compress(x, 5) is x

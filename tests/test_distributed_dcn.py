@@ -1,7 +1,7 @@
-"""Multi-host (DCN) smoke test: two real processes, a local coordinator,
-and the global frames-over-DCN x coils-over-ICI mesh of
-tron_tpu.parallel.distributed — the SURVEY §5.8 blueprint exercised without
-TPU hardware (each process contributes 4 virtual CPU devices).
+"""Multi-process smoke test: two real processes, a local coordinator, and
+the global frames-across-processes x coils-within-a-process mesh of
+tron_jax.parallel.distributed — the SURVEY §5.8 blueprint exercised on the
+CPU (each process contributes 4 virtual CPU devices).
 
 Each worker reconstructs the same acquisition through the sharded path and
 asserts its addressable output shards equal the single-device recon —
@@ -15,7 +15,6 @@ import subprocess
 import sys
 import textwrap
 
-import pytest
 
 _WORKER = textwrap.dedent(
     """
@@ -40,9 +39,9 @@ _WORKER = textwrap.dedent(
     from jax.sharding import PartitionSpec as P
     from jax.experimental import multihost_utils
 
-    from tron_tpu.config import ReconConfig
-    from tron_tpu.parallel import distributed, recon_frames_sharded
-    from tron_tpu.recon import recon_frames
+    from tron_jax.config import ReconConfig
+    from tron_jax.parallel import distributed, recon_frames_sharded
+    from tron_jax.recon import recon_frames
 
     mesh = distributed.make_global_mesh(n_coil=2)
     assert mesh.shape["frame"] * mesh.shape["coil"] == 8
@@ -75,10 +74,6 @@ _WORKER = textwrap.dedent(
 )
 
 
-@pytest.mark.skipif(
-    os.environ.get("TRON_TPU_TESTS", "") not in ("", "0"),
-    reason="CPU-mesh test; skipped in the TPU hardware run",
-)
 def test_two_process_dcn_recon(tmp_path):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

@@ -6,10 +6,10 @@ reassociation but not convention changes."""
 import numpy as np
 import jax.numpy as jnp
 
-from tron_tpu.config import AngleScheme, ReconConfig
-from tron_tpu.nufft import nufft_adjoint, nufft_forward
-from tron_tpu.phantom import shepp_logan
-from tron_tpu.trajectory import spoke_angles
+from tron_jax.config import AngleScheme, ReconConfig
+from tron_jax.nufft import nufft_adjoint, nufft_forward
+from tron_jax.phantom import shepp_logan
+from tron_jax.trajectory import spoke_angles
 
 
 def _fingerprint(x):
@@ -46,8 +46,8 @@ def test_gridding_determinism():
     outputs (gather/matmul formulation — no scatter, no atomics).  The
     reference only gets this by construction on GPU; here it is asserted.
     """
-    from tron_tpu.ops.grid import grid_radial2d
-    from tron_tpu.kernels.kb import kb_beta
+    from tron_jax.ops.grid import grid_radial2d
+    from tron_jax.kernels.kb import kb_beta
 
     rng = np.random.default_rng(7)
     data = (rng.standard_normal((2, 12, 64)) + 1j * rng.standard_normal((2, 12, 64))).astype(np.complex64)

@@ -10,12 +10,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-from tron_tpu.config import AngleScheme, ReconConfig
-from tron_tpu.kernels.kb import kb_beta
-from tron_tpu.nufft import nufft_adjoint
-from tron_tpu.ops.grid import grid_radial2d
-from tron_tpu.oracle import dtft2_adjoint
-from tron_tpu.trajectory import ramlak_sdc, spoke_angles
+from tron_jax.config import AngleScheme, ReconConfig
+from tron_jax.kernels.kb import kb_beta
+from tron_jax.nufft import nufft_adjoint
+from tron_jax.ops.grid import grid_radial2d
+from tron_jax.oracle import dtft2_adjoint
+from tron_jax.trajectory import ramlak_sdc, spoke_angles
 from tests.conftest import nrmse
 
 
@@ -76,7 +76,7 @@ def test_grid_pe_chunk_invariance(rng):
 def test_adjoint_pipeline_vs_dtft():
     """On realistic (decaying-spectrum) radial data, the full adjoint
     pipeline must match (1/(nxos*npe)) * exact weighted adjoint DTFT."""
-    from tron_tpu.phantom import shepp_logan_kspace
+    from tron_jax.phantom import shepp_logan_kspace
 
     n, npe = 32, 64
     cfg = ReconConfig(angle_scheme=AngleScheme.LINEAR_HALF, adjoint=True)

@@ -3,7 +3,7 @@
 import numpy as np
 import scipy.special
 
-from tron_tpu.kernels import besseli0, kb_beta, kb_kernel, kb_hat
+from tron_jax.kernels import besseli0, kb_beta, kb_kernel, kb_hat
 
 
 def test_besseli0_vs_scipy():

@@ -3,29 +3,27 @@
 The reference accepts any kernel half-width at runtime
 (`src/tron.cu:827-828`) and threads it through every kernel evaluation
 (`:465-577`).  Here kw is a ReconConfig field threaded the same way; these
-tests pin kw = 1.5 and 3.0 through each layer: the static KB polynomial,
-the Pallas grid/degrid kernels, the hoisted-planes fast path, the CGNR
-operator pair, and the full adjoint pipeline against the exact-DTFT
-oracle (which has no kernel at all, so deapodization errors cannot
-cancel).
+tests pin kw = 1.5 and 3.0 through each layer: the KB polynomial the Triton
+gridder evaluates, the gridder itself (interpreted) and the gather degrid,
+the CGNR operator pair, and the full adjoint pipeline against the
+exact-DTFT oracle (which has no kernel at all, so deapodization errors
+cannot cancel).
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tron_tpu.config import AngleScheme, ReconConfig
-from tron_tpu.kernels.kb import kb_beta, kb_kernel
-from tron_tpu.nufft import nufft_adjoint, nufft_forward, sdc_weights
-from tron_tpu.ops.degrid import degrid_radial2d
-from tron_tpu.ops.grid import grid_radial2d
-from tron_tpu.oracle import dtft2, dtft2_adjoint
-from tron_tpu.phantom import shepp_logan
-from tron_tpu.trajectory import spoke_angles
+from tron_jax.config import AngleScheme, ReconConfig
+from tron_jax.kernels.kb import kb_beta, kb_kernel
+from tron_jax.nufft import nufft_adjoint, nufft_forward, sdc_weights
+from tron_jax.ops import grid_triton
+from tron_jax.ops.degrid import degrid_radial2d
+from tron_jax.ops.grid import grid_radial2d
+from tron_jax.oracle import dtft2, dtft2_adjoint
+from tron_jax.phantom import shepp_logan
+from tron_jax.trajectory import spoke_angles
 from tests.conftest import nrmse
-
-grid_pallas = pytest.importorskip("tron_tpu.ops.grid_pallas")
-degrid_pallas = pytest.importorskip("tron_tpu.ops.degrid_pallas")
 
 KWS = [1.5, 3.0]
 
@@ -38,16 +36,21 @@ def _case(rng, C, npe, nro, skip=5):
     return jnp.asarray(data), angles
 
 
+def _triton(data, angles, nxos, kw, beta, **kwargs):
+    return np.asarray(grid_triton.grid_radial2d_triton(
+        data, angles, nxos, kw, beta, interpret=True, **kwargs))
+
+
 @pytest.mark.parametrize("kw", KWS)
 def test_kb_poly_accuracy(kw):
-    """The static Taylor-in-q polynomial the Pallas kernels evaluate must
-    track the reference KB window at any kw (the fit degree adapts to
-    beta: kw=3's beta=14.04 needs degree 13 where kw<=2 needs 9)."""
+    """The polynomial KB window the Triton gridder evaluates must track the
+    reference KB window at any kw (the fit degree adapts to beta: kw=3's
+    beta=14.04 needs degree 13 where kw<=2 needs 9)."""
     beta = kb_beta(kw, 2.0)
-    coeffs = grid_pallas._kb_taylor_coeffs(kw, beta)
+    coeffs = grid_triton._kb_coeffs(kw, beta)
     x = jnp.linspace(-kw + 1e-3, kw - 1e-3, 4001)
     want = np.asarray(kb_kernel(x, kw, beta))
-    got = np.asarray(grid_pallas._kb_poly(x, kw, coeffs))
+    got = np.asarray(grid_triton._kb_poly(x, kw, coeffs))
     # fit residual is <1e-7; the rest is fp32 Horner rounding over the
     # window's ~e^beta dynamic range (beta=14.04 at kw=3)
     rel = np.max(np.abs(got - want)) / np.max(want)
@@ -56,18 +59,12 @@ def test_kb_poly_accuracy(kw):
 
 @pytest.mark.parametrize("kw", KWS)
 def test_grid_kernel_kw(rng, kw):
-    """Segmented/windowed Pallas gridder vs the jnp dense gridder at kw."""
-    nxos = nro = 256
+    """Triton gridder (interpreted) vs the plain gridder at kw."""
+    nxos = nro = 64
     beta = kb_beta(kw, 2.0)
     data, angles = _case(rng, 2, 9, nro)
     want = np.asarray(grid_radial2d(data, angles, nxos, kw, beta))
-    got = np.asarray(
-        grid_pallas.grid_radial2d_pallas(
-            data, angles, nxos, kw, beta, pe_chunk=4,
-            matmul_dtype="float32", interpret=True,
-        )
-    )
-    err = nrmse(got, want)
+    err = nrmse(_triton(data, angles, nxos, kw, beta), want)
     assert err < 1e-5, f"grid kernel at kw={kw} nrmse={err:.2e}"
 
 
@@ -76,92 +73,71 @@ def test_grid_kernel_kw_nondefault_gridos(rng, kw):
     """kw and gridos vary together (both are runtime flags in the
     reference): osf 1.5 exercises the non-identity radius map under a
     non-default kernel band."""
-    nro = 512
-    nxos = int((nro // 2) * 1.5)  # 384: 3x3 tiles of 128
+    nro = 64
+    nxos = int((nro // 2) * 1.5)
     beta = kb_beta(kw, 1.5)
     data, angles = _case(rng, 1, 7, nro)
     want = np.asarray(grid_radial2d(data, angles, nxos, kw, beta))
-    got = np.asarray(
-        grid_pallas.grid_radial2d_pallas(
-            data, angles, nxos, kw, beta, pe_chunk=4,
-            matmul_dtype="float32", interpret=True,
-        )
-    )
-    err = nrmse(got, want)
+    err = nrmse(_triton(data, angles, nxos, kw, beta), want)
     assert err < 1e-5, f"grid kernel at kw={kw}, osf=1.5 nrmse={err:.2e}"
 
 
 @pytest.mark.parametrize("kw", KWS)
 def test_degrid_kernel_kw(rng, kw):
-    """Pallas degridder vs the gather backend at kw (interior readouts:
-    the kernel clips footprints at the grid edge where gather wraps, and
-    the disagreement band scales with kw)."""
-    n, npe = 256, 11
+    """Gather degrid vs the direct sum over the whole periodic grid at kw
+    (every grid point, its KB weight at the wrapped distance)."""
+    n, npe = 32, 5
     beta = kb_beta(kw, 2.0)
-    g = (rng.standard_normal((1, n, n)) + 1j * rng.standard_normal((1, n, n))).astype(
+    g = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))).astype(
         np.complex64
     )
     angles = jnp.asarray(spoke_angles(npe, AngleScheme.GOLDEN, 3))
-    want = np.asarray(
-        degrid_radial2d(jnp.asarray(g), angles, n, kw, beta, backend="gather")
-    )
-    got = np.asarray(
-        degrid_pallas.degrid_radial2d_pallas(
-            jnp.asarray(g), angles, n, kw, beta, pe_chunk=4,
-            matmul_dtype="float32", interpret=True,
-        )
-    )
-    ro = np.arange(n)
-    m = (np.abs(ro - n // 2) <= n // 2 - kw - 2) & (ro != 0)
-    err = nrmse(got[..., m], want[..., m])
-    assert err < 2e-4, f"degrid kernel at kw={kw} nrmse={err:.2e}"
+    got = np.asarray(degrid_radial2d(jnp.asarray(g), angles, n, kw, beta))
+    kr = (np.arange(n) / n - 0.5) * n
+    xs = kr[None, :] * np.cos(np.asarray(angles))[:, None] + n // 2
+    ys = kr[None, :] * np.sin(np.asarray(angles))[:, None] + n // 2
+    pos = np.arange(n)
+
+    def w(d):
+        d = np.mod(d + n / 2, n) - n / 2
+        return np.asarray(kb_kernel(jnp.asarray(d, jnp.float32), kw, beta))
+
+    A = w(xs[..., None] - pos)                   # (npe, nro, x)
+    B = w(ys[..., None] - pos)                   # (npe, nro, y)
+    want = np.einsum("pry,yx,prx->pr", B, g, A)
+    err = nrmse(got, want)
+    assert err < 2e-5, f"degrid at kw={kw} nrmse={err:.2e}"
 
 
 @pytest.mark.parametrize("kw", KWS)
-def test_planes_path_kw(rng, kw):
-    """The hoisted sample-plane fast path must match the complex-input
-    kernel at kw != 2 (the KB band enters both operand generators)."""
-    nro = 256
-    nxos = 256
+def test_exact_lattice_kw(rng, kw):
+    """The exact-lattice Triton gridder vs the plain raw_rows gridder at
+    kw != 2 (the KB band enters both weight generators)."""
+    nro = nxos = 64
     beta = kb_beta(kw, 2.0)
     data, angles = _case(rng, 1, 6, nro)
-    want = np.asarray(
-        grid_pallas.grid_radial2d_pallas(
-            data, angles, nxos, kw, beta, pe_chunk=4,
-            matmul_dtype="float32", interpret=True,
-        )
-    )
-    planes = grid_pallas.to_sample_planes(data, nxos)
-    got = np.asarray(
-        grid_pallas.grid_radial2d_pallas_planes(
-            planes, angles, nxos, kw, beta, pe_chunk=4,
-            matmul_dtype="float32", interpret=True,
-        )
-    )
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    data = data.at[..., 0].set(0)
+    want = np.asarray(grid_radial2d(data, angles, nxos, kw, beta, raw_rows=True))
+    err = nrmse(_triton(data, angles, nxos, kw, beta, exact=True), want)
+    assert err < 1e-5, f"exact-lattice gridder at kw={kw} nrmse={err:.2e}"
 
 
 @pytest.mark.parametrize("kw", KWS)
 def test_exact_pair_adjointness_kw(rng, kw):
     """Dot test at kw != 2: the exact-lattice gridder stays the transpose
-    of the generalized degridder (the CGNR pair contract)."""
-    nro = nxos = 256
+    of the clip-mode gather degrid (the CGNR pair contract)."""
+    nro = nxos = 64
     beta = kb_beta(kw, 2.0)
     angles = jnp.asarray(spoke_angles(5, AngleScheme.GOLDEN, 2))
     x = (rng.standard_normal((1, nxos, nxos))
          + 1j * rng.standard_normal((1, nxos, nxos))).astype(np.complex64)
     y = (rng.standard_normal((1, 5, nro))
          + 1j * rng.standard_normal((1, 5, nro))).astype(np.complex64)
-    Ax = degrid_pallas.degrid_radial2d_pallas(
-        jnp.asarray(x), angles, nro, kw, beta, pe_chunk=4,
-        matmul_dtype="float32", interpret=True,
-    )
-    AHy = grid_pallas.grid_radial2d_pallas_exact(
-        jnp.asarray(y), angles, nxos, kw, beta, pe_chunk=4,
-        matmul_dtype="float32", interpret=True,
-    ) * (nxos * 5)
+    y[..., 0] = 0
+    Ax = degrid_radial2d(jnp.asarray(x), angles, nro, kw, beta, wrap=False)
+    AHy = _triton(jnp.asarray(y), angles, nxos, kw, beta, exact=True) * (nxos * 5)
     lhs = complex(jnp.vdot(jnp.asarray(y), Ax))
-    rhs = complex(jnp.vdot(AHy, jnp.asarray(x)))
+    rhs = complex(jnp.vdot(jnp.asarray(AHy), jnp.asarray(x)))
     rel = abs(lhs - rhs) / abs(rhs)
     assert rel < 1e-4, f"pair dot test at kw={kw}: rel={rel:.2e}"
 
@@ -205,7 +181,7 @@ def test_cgnr_converges_kw(rng, kw):
     reduce the data residual ||A x - y|| below the plain adjoint's."""
     import dataclasses
 
-    from tron_tpu.solver import cgnr_radial2d
+    from tron_jax.solver import cgnr_radial2d
 
     n, npe = 32, 24
     nro = 2 * n

@@ -3,9 +3,9 @@ the in-plane radial NUFFT, so forward-then-adjoint recovers each slice."""
 
 import numpy as np
 
-from tron_tpu.config import AngleScheme, ReconConfig
-from tron_tpu.phantom import shepp_logan
-from tron_tpu.recon import recon_radial2d
+from tron_jax.config import AngleScheme, ReconConfig
+from tron_jax.phantom import shepp_logan
+from tron_jax.recon import recon_radial2d
 from tests.conftest import lmse
 
 
@@ -77,7 +77,7 @@ def test_stack_of_stars_sharded_matches_local(rng):
     koosh recon."""
     import jax
 
-    from tron_tpu.parallel import make_mesh, recon_stack_of_stars_sharded
+    from tron_jax.parallel import make_mesh, recon_stack_of_stars_sharded
 
     n, nzs, nc = 32, 6, 2
     nro, npe1 = 2 * n, 32
@@ -101,8 +101,8 @@ def test_koosh_streaming_matches_in_memory(tmp_path, rng):
     across multiple frame windows incl. the realigned tail, with the
     golden-angle skip0 threaded so absolute profile indices survive the
     windowing."""
-    from tron_tpu.io import ra_write
-    from tron_tpu.recon import recon_koosh_streaming
+    from tron_jax.io import ra_write
+    from tron_jax.recon import recon_koosh_streaming
 
     nc, nt, nro, npe1, npe2 = 2, 1, 32, 120, 3
     d5 = (
@@ -124,8 +124,8 @@ def test_koosh_streaming_kz_blocks(tmp_path, rng, monkeypatch):
     """Several kz-slice blocks per profile window (npe2 > block size, with
     the realigned overlapping tail block) — forced via TRON_KOOSH_BATCH=1
     so nb = 8 < npe2 = 12."""
-    from tron_tpu.io import ra_write
-    from tron_tpu.recon import recon_koosh_streaming
+    from tron_jax.io import ra_write
+    from tron_jax.recon import recon_koosh_streaming
 
     monkeypatch.setenv("TRON_KOOSH_BATCH", "1")
     nc, nt, nro, npe1, npe2 = 2, 2, 32, 32, 12

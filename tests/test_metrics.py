@@ -3,7 +3,7 @@ metric scripts)."""
 
 import numpy as np
 
-from tron_tpu.metrics import lmse, lmsediff, nmse, nrmse, rmse, ssim
+from tron_jax.metrics import lmse, lmsediff, nmse, nrmse, rmse, ssim
 
 
 def test_rmse_nmse_basic(rng):
@@ -40,7 +40,7 @@ def test_ssim_matches_known_range():
 
 
 def test_viz_writes_pngs(tmp_path, rng):
-    from tron_tpu.viz import compare, mosaic, rimp
+    from tron_jax.viz import compare, mosaic, rimp
 
     stack = rng.random((5, 16, 16))
     p1 = mosaic(stack, str(tmp_path / "m.png"))
@@ -53,8 +53,8 @@ def test_viz_writes_pngs(tmp_path, rng):
 
 
 def test_raview(tmp_path, rng):
-    from tron_tpu.io import ra_write
-    from tron_tpu.viz import raview
+    from tron_jax.io import ra_write
+    from tron_jax.viz import raview
 
     img = (rng.standard_normal((1, 1, 16, 16, 3)) + 0j).astype(np.complex64)
     p = tmp_path / "v.ra"

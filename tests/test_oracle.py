@@ -4,8 +4,8 @@ analytic Shepp-Logan k-space."""
 import numpy as np
 import jax.numpy as jnp
 
-from tron_tpu.oracle import dtft2, dtft2_adjoint
-from tron_tpu.phantom import shepp_logan, shepp_logan_kspace
+from tron_jax.oracle import dtft2, dtft2_adjoint
+from tron_jax.phantom import shepp_logan, shepp_logan_kspace
 from tests.conftest import nrmse
 
 
@@ -77,7 +77,7 @@ def test_phantom_basic():
 def test_phase_fp32_exact_at_large_k():
     """_phase must stay phase-accurate at |k*p| ~ 3e4 (512-readout whole-body
     geometry) where a naive fp32 k*p*2pi/nos loses ~2.4e-5 rad."""
-    from tron_tpu.oracle.dtft import _phase
+    from tron_jax.oracle.dtft import _phase
 
     n, nos = 256, 512
     k = np.array([255.5, -255.5, 199.874, 83.0001], dtype=np.float32)
@@ -88,7 +88,7 @@ def test_phase_fp32_exact_at_large_k():
 
 
 def test_chunked_adjoint_matches_unchunked(rng):
-    from tron_tpu.oracle import dtft2_adjoint_chunked
+    from tron_jax.oracle import dtft2_adjoint_chunked
 
     n, m, nos = 16, 101, 32  # m deliberately not a chunk multiple
     y = (rng.standard_normal((3, m)) + 1j * rng.standard_normal((3, m))).astype(
@@ -107,10 +107,10 @@ def test_oracle_adjoint_recon_matches_inline_recipe(rng):
     """oracle_adjoint_recon is the ONE canonical weighting/scaling recipe
     (Ram-Lak SDC, readout 0 zeroed, chunked DTFT adjoint, 1/(nro*npe));
     pin it against the recipe spelled out inline so callers can't drift."""
-    from tron_tpu.config import ReconConfig
-    from tron_tpu.nufft import sdc_weights
-    from tron_tpu.oracle import dtft2_adjoint_chunked, oracle_adjoint_recon
-    from tron_tpu.trajectory import spoke_angles
+    from tron_jax.config import ReconConfig
+    from tron_jax.nufft import sdc_weights
+    from tron_jax.oracle import dtft2_adjoint_chunked, oracle_adjoint_recon
+    from tron_jax.trajectory import spoke_angles
 
     n, nc, npe = 16, 2, 12
     nro = 2 * n

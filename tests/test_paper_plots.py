@@ -31,18 +31,20 @@ def _write_timings(path):
         {
             "dataset": "whole_body",
             "frames": 956,
-            "tpu_s": 2.04,
+            "seconds": 1.0,
             "ref_gpu_s": 3.28,
-            "speedup": 1.61,
-            "tpu_msamples_per_s": 294.1,
+            "speedup": 3.28,
+            "msamples_per_s": 100.0,
+            "device": "test card",
         },
         {
             "dataset": "optic_nerve",
             "frames": 17,
-            "tpu_s": 0.05,
+            "seconds": 0.1,
             "ref_gpu_s": 0.32,
-            "speedup": 6.4,
-            "tpu_msamples_per_s": 46.0,
+            "speedup": 3.2,
+            "msamples_per_s": 10.0,
+            "device": "test card",
         },
     ]
     with open(path, "w", newline="") as fh:
@@ -86,7 +88,7 @@ def test_ssim_table_missing_csv(tmp_path):
 
 
 def test_whole_body_mosaic(tmp_path):
-    from tron_tpu.io import ra_write
+    from tron_jax.io import ra_write
 
     # tiny (1, nt, nx, ny, nz) recon stack in the CLI's output convention
     nz, n = 5, 16

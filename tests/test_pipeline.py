@@ -14,11 +14,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from tron_tpu.config import AngleScheme, ReconConfig
-from tron_tpu.nufft import nufft_adjoint, nufft_forward, sdc_weights
-from tron_tpu.oracle import dtft2, dtft2_adjoint
-from tron_tpu.phantom import shepp_logan
-from tron_tpu.trajectory import spoke_angles
+from tron_jax.config import AngleScheme, ReconConfig
+from tron_jax.nufft import nufft_adjoint, nufft_forward, sdc_weights
+from tron_jax.oracle import dtft2, dtft2_adjoint
+from tron_jax.phantom import shepp_logan
+from tron_jax.trajectory import spoke_angles
 from tests.conftest import lmse, nrmse
 
 
@@ -131,7 +131,7 @@ def test_forward_adjoint_dot_test(rng):
 
 def test_recon_frames_sliding_window(rng):
     """Frame scheduler: sliding window recon matches per-frame manual calls."""
-    from tron_tpu.recon import recon_frames
+    from tron_jax.recon import recon_frames
 
     n, nc = 16, 2
     nro = 2 * n
@@ -144,7 +144,7 @@ def test_recon_frames_sliding_window(rng):
     out = np.asarray(recon_frames(jnp.asarray(data), cfg, w, s, nz))
     assert out.shape == (nz, n, n)
 
-    from tron_tpu.recon import reconstruct_frame
+    from tron_jax.recon import reconstruct_frame
 
     for z in range(nz):
         win = data[:, z * slide : z * slide + work]
@@ -158,7 +158,7 @@ def test_recon_frames_incremental_matches_direct(rng):
     drift would show, plus the skip0 streaming offset."""
     import dataclasses
 
-    from tron_tpu.recon import (
+    from tron_jax.recon import (
         incremental_applicable,
         recon_frames,
         recon_frames_incremental,
@@ -167,7 +167,7 @@ def test_recon_frames_incremental_matches_direct(rng):
     nc, nro, npe1 = 3, 32, 92
     cfg = ReconConfig(
         adjoint=True, golden_angle=True, data_undersamp=0.5, prof_slide=4,
-        backend="jnp", matmul_dtype="float32",
+        backend="jnp",
     )
     work, slide, nz = cfg.frame_geometry(nro, npe1)
     assert (work, slide, nz) == (16, 4, 20)
@@ -202,7 +202,7 @@ def test_recon_radial2d_incremental_driver(rng):
     and the silent fallback for a non-applicable (linear-angle) config."""
     import dataclasses
 
-    from tron_tpu.recon import recon_radial2d
+    from tron_jax.recon import recon_radial2d
 
     nc, nt, nro, npe1 = 2, 2, 32, 48
     data = (
@@ -211,7 +211,7 @@ def test_recon_radial2d_incremental_driver(rng):
     ).astype(np.complex64)
     base = ReconConfig(
         adjoint=True, golden_angle=True, data_undersamp=0.5, prof_slide=4,
-        backend="jnp", matmul_dtype="float32",
+        backend="jnp",
     )
     for combine in ("sos", "walsh", "none"):
         cfg0 = dataclasses.replace(base, coil_combine=combine)
@@ -231,13 +231,12 @@ def test_incremental_block_size_invariance(rng):
     at any block size."""
     import dataclasses
 
-    from tron_tpu.config import KernelTuning
-    from tron_tpu.recon import recon_frames_incremental
+    from tron_jax.recon import recon_frames_incremental
 
     nc, nro, npe1 = 2, 32, 92
     cfg0 = ReconConfig(
         adjoint=True, golden_angle=True, data_undersamp=0.5, prof_slide=4,
-        backend="jnp", matmul_dtype="float32",
+        backend="jnp",
     )
     work, slide, nz = cfg0.frame_geometry(nro, npe1)
     data = (
@@ -248,9 +247,7 @@ def test_incremental_block_size_invariance(rng):
 
     outs = []
     for bs in (1, 3, 8):
-        cfg = dataclasses.replace(
-            cfg0, tuning=dataclasses.replace(KernelTuning(), inc_block=bs)
-        )
+        cfg = dataclasses.replace(cfg0, inc_block=bs)
         outs.append(np.asarray(
             recon_frames_incremental(d, cfg, work, slide, nz)
         ))
@@ -263,13 +260,12 @@ def test_direct_frame_block_invariance(rng):
     change recon_frames' values."""
     import dataclasses
 
-    from tron_tpu.config import KernelTuning
-    from tron_tpu.recon import recon_frames
+    from tron_jax.recon import recon_frames
 
     nc, nro, npe1 = 2, 32, 64
     cfg0 = ReconConfig(
         adjoint=True, golden_angle=True, data_undersamp=0.5, prof_slide=8,
-        backend="jnp", matmul_dtype="float32",
+        backend="jnp",
     )
     work, slide, nz = cfg0.frame_geometry(nro, npe1)
     data = (
@@ -280,9 +276,7 @@ def test_direct_frame_block_invariance(rng):
     outs = [
         np.asarray(recon_frames(
             d,
-            dataclasses.replace(
-                cfg0, tuning=dataclasses.replace(KernelTuning(), frame_block=fb)
-            ),
+            dataclasses.replace(cfg0, frame_block=fb),
             work, slide, nz,
         ))
         for fb in (1, 4, 8)

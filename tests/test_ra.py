@@ -6,7 +6,7 @@ import struct
 import numpy as np
 import pytest
 
-from tron_tpu.io import ra_read, ra_write, ra_query, ra_convert, RA_MAGIC
+from tron_jax.io import ra_read, ra_write, ra_query, ra_convert, RA_MAGIC
 
 
 def _golden_bytes():
@@ -104,7 +104,7 @@ def test_big_endian_read_byteswaps(tmp_path):
     """BE files warn-and-proceed (like the reference's unknown-flag path,
     src/ra.cu:98-102): data is byte-swapped to native order on read, via
     both the pure-Python reader and the native binding's fallback."""
-    from tron_tpu.io.ra import RA_FLAG_BIG_ENDIAN
+    from tron_jax.io.ra import RA_FLAG_BIG_ENDIAN
 
     data = (np.arange(6, dtype=np.complex64) * (1 + 2j)).reshape(3, 2).T
     header = struct.pack(
@@ -119,7 +119,7 @@ def test_big_endian_read_byteswaps(tmp_path):
     assert arr.dtype.byteorder in ("=", "<", "|")
     np.testing.assert_array_equal(arr, data)
 
-    from tron_tpu.io import native
+    from tron_jax.io import native
 
     if native.available():
         with pytest.warns(UserWarning, match="big-endian"):
@@ -130,7 +130,7 @@ def test_big_endian_read_byteswaps(tmp_path):
 def test_ra_writer_matches_one_shot_write(tmp_path, rng):
     """RaWriter region writes (in-order, out-of-order, overlapping rewrite)
     must produce byte-identical files to ra_write."""
-    from tron_tpu.io import RaWriter
+    from tron_jax.io import RaWriter
 
     a = (rng.standard_normal((4, 5, 6)) +
          1j * rng.standard_normal((4, 5, 6))).astype(np.complex64)
@@ -157,7 +157,7 @@ def test_ra_writer_matches_one_shot_write(tmp_path, rng):
 
 
 def test_ra_writer_bounds_and_abort(tmp_path):
-    from tron_tpu.io import RaWriter
+    from tron_jax.io import RaWriter
 
     p = tmp_path / "w.ra"
     w = RaWriter(p, (4, 2), np.float32)

@@ -4,8 +4,8 @@ bit-exact fp16 conversion."""
 import numpy as np
 import pytest
 
-from tron_tpu.io import ra_read as py_read, ra_write as py_write
-from tron_tpu.io import native
+from tron_jax.io import ra_read as py_read, ra_write as py_write
+from tron_jax.io import native
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="native lib unavailable")
 
@@ -81,7 +81,7 @@ def test_read_profiles_out_of_range(tmp_path, rng):
 def test_native_write_region_roundtrip(tmp_path, rng):
     """ra_nat_write_region pwrites into the payload of a header-carrying
     file; region reads must see exactly the written bytes."""
-    from tron_tpu.io import RaWriter, ra_read
+    from tron_jax.io import RaWriter, ra_read
 
     if not native.available():
         import pytest
@@ -99,7 +99,7 @@ def test_native_write_region_roundtrip(tmp_path, rng):
     # out-of-range region must be refused by the native layer
     import pytest
 
-    from tron_tpu.io.native import ra_write_region
+    from tron_jax.io.native import ra_write_region
 
     with pytest.raises(IOError):
         ra_write_region(p, 8 * 3 * 4 - 2, np.zeros(4, np.float32))
@@ -108,7 +108,7 @@ def test_native_write_region_roundtrip(tmp_path, rng):
 def test_read_profiles_pair_and_float(tmp_path, rng):
     """The stride-aware windowed reader handles float16 re/im-pair files
     (--half convention) and plain float files, returning complex64."""
-    from tron_tpu.io import ra_write
+    from tron_jax.io import ra_write
 
     b = (rng.standard_normal((3, 1, 8, 10)) +
          1j * rng.standard_normal((3, 1, 8, 10))).astype(np.complex64)

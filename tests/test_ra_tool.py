@@ -3,8 +3,8 @@ fp16 / re-im-pair paths."""
 
 import numpy as np
 
-from tron_tpu.io import ra_query, ra_read, ra_write
-from tron_tpu.tools.ra_tool import main as ra_main
+from tron_jax.io import ra_query, ra_read, ra_write
+from tron_jax.tools.ra_tool import main as ra_main
 
 
 def test_query_reshape_squash(tmp_path, rng, capsys):
@@ -45,8 +45,8 @@ def test_diff(tmp_path, rng, capsys):
 
 
 def test_cli_half_output_and_pair_input(tmp_path):
-    from tron_tpu.cli import main
-    from tron_tpu.phantom import shepp_logan
+    from tron_jax.cli import main
+    from tron_jax.phantom import shepp_logan
 
     n = 16
     img = shepp_logan(n)
@@ -71,7 +71,7 @@ def test_half_subcommand_roundtrip(tmp_path, rng):
     """ra_tool half: complex -> fp16 re/im-pair (leading dim of 2) and back;
     the pair file must be exactly what the streaming reader and --half
     outputs use, and the back-conversion must equal an f16 quantization."""
-    from tron_tpu.tools.ra_tool import main as ra_main
+    from tron_jax.tools.ra_tool import main as ra_main
 
     x = (rng.standard_normal((3, 1, 8, 5, 1)) +
          1j * rng.standard_normal((3, 1, 8, 5, 1))).astype(np.complex64)

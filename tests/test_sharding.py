@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tron_tpu.config import ReconConfig
-from tron_tpu.parallel import make_mesh, recon_frames_sharded
-from tron_tpu.recon import recon_frames
+from tron_jax.config import ReconConfig
+from tron_jax.parallel import make_mesh, recon_frames_sharded
+from tron_jax.recon import recon_frames
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices (see conftest)"
@@ -140,7 +140,7 @@ def test_sharded_combine_none(rng):
 def test_distributed_single_process_mesh():
     """The DCN bootstrap module degenerates to the local mesh on one
     process (frame axis = all devices), and its frame slice covers nz."""
-    from tron_tpu.parallel import distributed
+    from tron_jax.parallel import distributed
 
     mesh = distributed.make_global_mesh(n_coil=2)
     assert mesh.shape == {"frame": 4, "coil": 2}
@@ -154,9 +154,9 @@ def test_distributed_single_process_mesh():
 def test_spoke_sharded_adjoint_matches_local(rng):
     """Spokes sharded 8 ways; psum of partial grids must equal the unsharded
     adjoint recon of the same window (npe divides the axis)."""
-    from tron_tpu.parallel import make_spoke_mesh, recon_window_spoke_sharded
-    from tron_tpu.nufft import nufft_adjoint
-    from tron_tpu.trajectory import spoke_angles
+    from tron_jax.parallel import make_spoke_mesh, recon_window_spoke_sharded
+    from tron_jax.nufft import nufft_adjoint
+    from tron_jax.trajectory import spoke_angles
 
     nro, npe, nc = 32, 48, 3
     cfg = ReconConfig(golden_angle=True)
@@ -175,9 +175,9 @@ def test_spoke_sharded_adjoint_matches_local(rng):
 def test_spoke_sharded_padding_and_linear_scheme(rng):
     """npe=42 does not divide 8 (zero-padded spokes) and the linear-full
     scheme derives angles from the GLOBAL npe."""
-    from tron_tpu.parallel import make_spoke_mesh, recon_window_spoke_sharded
-    from tron_tpu.nufft import nufft_adjoint
-    from tron_tpu.trajectory import spoke_angles
+    from tron_jax.parallel import make_spoke_mesh, recon_window_spoke_sharded
+    from tron_jax.nufft import nufft_adjoint
+    from tron_jax.trajectory import spoke_angles
 
     nro, npe, nc = 32, 42, 2
     cfg = ReconConfig(golden_angle=False)
@@ -196,9 +196,9 @@ def test_spoke_sharded_cgnr_matches_local(rng):
     """CGNR with spokes sharded: A^H W (.) psums over 'spoke' and the
     solution must match the unsharded solver on the same window (incl. a
     padded spoke count, exercising the sample_mask zero-weighting)."""
-    from tron_tpu.parallel import make_spoke_mesh, recon_window_spoke_sharded
-    from tron_tpu.solver import cgnr_radial2d
-    from tron_tpu.trajectory import spoke_angles
+    from tron_jax.parallel import make_spoke_mesh, recon_window_spoke_sharded
+    from tron_jax.solver import cgnr_radial2d
+    from tron_jax.trajectory import spoke_angles
 
     nro, npe, nc = 32, 42, 2
     cfg = ReconConfig(golden_angle=True, niter=3, coil_combine="none")
@@ -217,9 +217,9 @@ def test_spoke_sharded_cgnr_toeplitz(rng):
     """--toeplitz under spoke sharding: the Fourier multiplier psums once at
     setup; iterations are collective-free and match the unsharded Toeplitz
     solve."""
-    from tron_tpu.parallel import make_spoke_mesh, recon_window_spoke_sharded
-    from tron_tpu.solver import cgnr_radial2d
-    from tron_tpu.trajectory import spoke_angles
+    from tron_jax.parallel import make_spoke_mesh, recon_window_spoke_sharded
+    from tron_jax.solver import cgnr_radial2d
+    from tron_jax.trajectory import spoke_angles
 
     nro, npe, nc = 32, 40, 1
     cfg = ReconConfig(golden_angle=True, niter=3, toeplitz=True,
@@ -237,9 +237,9 @@ def test_spoke_sharded_cgnr_toeplitz(rng):
 def test_spoke_coil_2d_mesh(rng):
     """SP x TP: spokes AND coils sharded (4 x 2 mesh).  The coil combine
     psums over 'coil' on top of the spoke-grid psum."""
-    from tron_tpu.parallel import make_spoke_mesh, recon_window_spoke_sharded
-    from tron_tpu.nufft import nufft_adjoint
-    from tron_tpu.trajectory import spoke_angles
+    from tron_jax.parallel import make_spoke_mesh, recon_window_spoke_sharded
+    from tron_jax.nufft import nufft_adjoint
+    from tron_jax.trajectory import spoke_angles
 
     nro, npe, nc = 32, 44, 4
     cfg = ReconConfig(golden_angle=True)
@@ -257,10 +257,10 @@ def test_spoke_coil_2d_mesh(rng):
 def test_spoke_coil_cgnr_and_walsh(rng):
     """SP x TP with CGNR (coil-psum'd inner products + spoke-psum'd A^H W)
     and with the Walsh combine (coil all_gather after the sharded step)."""
-    from tron_tpu.parallel import make_spoke_mesh, recon_window_spoke_sharded
-    from tron_tpu.ops.coil import coil_combine_walsh
-    from tron_tpu.solver import cgnr_radial2d
-    from tron_tpu.trajectory import spoke_angles
+    from tron_jax.parallel import make_spoke_mesh, recon_window_spoke_sharded
+    from tron_jax.ops.coil import coil_combine_walsh
+    from tron_jax.solver import cgnr_radial2d
+    from tron_jax.trajectory import spoke_angles
 
     nro, npe, nc = 32, 40, 4
     data = _mkdata(rng, nc, npe, nro)
@@ -274,7 +274,7 @@ def test_spoke_coil_cgnr_and_walsh(rng):
 
     cfgw = ReconConfig(golden_angle=True, coil_combine="walsh")
     goth = np.asarray(recon_window_spoke_sharded(jnp.asarray(data), cfgw, mesh))
-    from tron_tpu.nufft import nufft_adjoint
+    from tron_jax.nufft import nufft_adjoint
 
     coil = nufft_adjoint(jnp.asarray(data), angles, cfgw)
     wanth = np.asarray(coil_combine_walsh(coil, cfgw.walsh_npatch))
@@ -283,8 +283,8 @@ def test_spoke_coil_cgnr_and_walsh(rng):
 
 def test_forward_sharded_matches_local(rng):
     # frame-sharded forward degrid (2D image series), non-dividing nz
-    from tron_tpu.parallel import recon_forward_sharded
-    from tron_tpu.recon import recon_radial2d
+    from tron_jax.parallel import recon_forward_sharded
+    from tron_jax.recon import recon_radial2d
 
     nc, nt, n, nz = 2, 1, 16, 5
     cfg = ReconConfig(golden_angle=True, data_undersamp=0.5, adjoint=False)
@@ -302,8 +302,8 @@ def test_forward_sharded_matches_local(rng):
 
 def test_forward_sharded_koosh(rng):
     # slice-sharded -3 forward: sharded degrids + the replicating kz FFT
-    from tron_tpu.parallel import recon_forward_sharded
-    from tron_tpu.recon import recon_radial2d
+    from tron_jax.parallel import recon_forward_sharded
+    from tron_jax.recon import recon_radial2d
 
     nc, nt, n, nz = 2, 1, 16, 6
     cfg = ReconConfig(
@@ -319,3 +319,42 @@ def test_forward_sharded_koosh(rng):
     want = recon_radial2d(imgs, cfg)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+# ---- the Triton gridder (interpreted) inside the sharded schedulers --------
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_frame_sharded_through_the_kernel(rng, incremental):
+    """--shard on the GPU runs the Pallas kernel under shard_map; here it
+    runs interpreted on a 4 x 2 ('frame', 'coil') mesh, direct and
+    incremental, against the plain single-device recon."""
+    import dataclasses
+
+    nro, npe1, nc = 32, 36, 2
+    cfg = ReconConfig(golden_angle=True, data_undersamp=0.5, prof_slide=4,
+                      adjoint=True, incremental=incremental)
+    work, slide, nz = cfg.frame_geometry(nro, npe1)
+    data = jnp.asarray(_mkdata(rng, nc, npe1, nro))
+    cfg_k = dataclasses.replace(cfg, backend="pallas", interpret=True)
+    got = np.asarray(recon_frames_sharded(
+        data, cfg_k, make_mesh(n_frame=4, n_coil=2), work, slide, nz))
+    want = np.asarray(recon_frames(data, cfg, work, slide, nz))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)
+
+
+def test_spoke_sharded_through_the_kernel(rng):
+    """--shard-spokes -i: the kernel (interpreted) grids each card's spokes
+    inside the CGNR pair, against the plain unsharded solve."""
+    import dataclasses
+
+    from tron_jax.parallel import make_spoke_mesh, recon_window_spoke_sharded
+    from tron_jax.recon import reconstruct_frame
+
+    nro, npe, nc = 32, 20, 2
+    cfg = ReconConfig(golden_angle=True, niter=3)
+    data = jnp.asarray(_mkdata(rng, nc, npe, nro))
+    cfg_k = dataclasses.replace(cfg, backend="pallas", interpret=True)
+    got = np.asarray(recon_window_spoke_sharded(data, cfg_k, make_spoke_mesh(4)))
+    want = np.asarray(reconstruct_frame(data, 0, cfg))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)

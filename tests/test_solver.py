@@ -6,11 +6,11 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from tron_tpu.config import AngleScheme, ReconConfig
-from tron_tpu.nufft import nufft_forward
-from tron_tpu.phantom import shepp_logan
-from tron_tpu.solver import cgnr_radial2d
-from tron_tpu.trajectory import spoke_angles
+from tron_jax.config import AngleScheme, ReconConfig
+from tron_jax.nufft import nufft_forward
+from tron_jax.phantom import shepp_logan
+from tron_jax.solver import cgnr_radial2d
+from tron_jax.trajectory import spoke_angles
 from tests.conftest import lmse
 
 
@@ -21,7 +21,7 @@ def test_cgnr_improves_on_adjoint():
     angles = jnp.asarray(spoke_angles(npe, AngleScheme.LINEAR_HALF))
     data = nufft_forward(jnp.asarray(img), angles, cfg)
 
-    from tron_tpu.nufft import nufft_adjoint
+    from tron_jax.nufft import nufft_adjoint
 
     adj = np.asarray(nufft_adjoint(data, angles, cfg))
     x10 = np.asarray(cgnr_radial2d(data, angles, cfg, niter=10))
@@ -63,7 +63,7 @@ def test_cgnr_operator_pair():
     err = np.linalg.norm(xp - xt) / np.linalg.norm(xt)
     assert err < 0.15, f"pair vs transpose CGNR nrmse={err:.2e}"
     # pair mode must actually solve its problem: beat the plain adjoint
-    from tron_tpu.nufft import nufft_adjoint
+    from tron_jax.nufft import nufft_adjoint
     from tests.conftest import lmse
 
     adj = np.asarray(nufft_adjoint(data, angles, cfg))
@@ -73,9 +73,9 @@ def test_cgnr_operator_pair():
 def test_toeplitz_apply_matches_exact_normal_operator(rng):
     """toeplitz_apply with the exact-DTFT kernel must equal the literal
     E^H W E (exact NUFFT normal operator) applied via dtft2 / dtft2_adjoint."""
-    from tron_tpu.nufft import sdc_weights
-    from tron_tpu.oracle import dtft2, dtft2_adjoint
-    from tron_tpu.solver import toeplitz_apply, toeplitz_fourier_kernel
+    from tron_jax.nufft import sdc_weights
+    from tron_jax.oracle import dtft2, dtft2_adjoint
+    from tron_jax.solver import toeplitz_apply, toeplitz_fourier_kernel
 
     n, npe = 16, 11
     nro = 2 * n
@@ -105,7 +105,7 @@ def test_toeplitz_apply_matches_exact_normal_operator(rng):
 def test_toeplitz_nufft_kernel_matches_exact(rng):
     """The fast (gridded) PSF kernel must agree with the exact-DTFT kernel
     to NUFFT accuracy."""
-    from tron_tpu.solver import toeplitz_fourier_kernel
+    from tron_jax.solver import toeplitz_fourier_kernel
 
     n, npe = 32, 24
     nro = 2 * n
@@ -122,7 +122,7 @@ def test_toeplitz_nufft_method_requires_gridos2(rng):
     put the even-slot samples at the wrong doubled frequencies — measured
     0.48-1.0 NRMSE); forcing method='nufft' elsewhere must raise, and
     method='auto' must fall back to the exact kernel."""
-    from tron_tpu.solver import toeplitz_fourier_kernel
+    from tron_jax.solver import toeplitz_fourier_kernel
 
     n, npe = 32, 24
     nro = 2 * n
@@ -159,7 +159,7 @@ def test_cgnr_toeplitz_matches_operator_mode():
     x_flag = np.asarray(cgnr_radial2d(data, angles, cfg_flag, niter=8))
     np.testing.assert_array_equal(x_flag, x_tp)
 
-    from tron_tpu.nufft import nufft_adjoint
+    from tron_jax.nufft import nufft_adjoint
 
     e_adj = lmse(np.asarray(nufft_adjoint(data, angles, cfg)), img)
     e_tp = lmse(x_tp, img)
@@ -183,7 +183,7 @@ def test_cgnr_operator_pair_nondefault_gridos(rng, gridos):
     xp = np.asarray(cgnr_radial2d(data, angles, cfg, niter=6, operators="pair"))
     err = np.linalg.norm(xp - xt) / np.linalg.norm(xt)
     assert err < 0.15, f"pair vs transpose CGNR at gridos={gridos} nrmse={err:.2e}"
-    from tron_tpu.nufft import nufft_adjoint
+    from tron_jax.nufft import nufft_adjoint
     from tests.conftest import lmse
 
     adj = np.asarray(nufft_adjoint(data, angles, cfg))

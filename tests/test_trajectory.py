@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from tron_tpu.config import PHI, AngleScheme, ReconConfig
-from tron_tpu.trajectory import modang, ramlak_sdc, sample_radii, spoke_angles, grid_radius_to_ro
+from tron_jax.config import PHI, AngleScheme, ReconConfig
+from tron_jax.trajectory import modang, ramlak_sdc, sample_radii, spoke_angles, grid_radius_to_ro
 
 
 def test_phi_constant():

@@ -1,29 +1,34 @@
-"""Host<->device transfer helpers (complex carried as f32 pairs)."""
+"""Reduced-precision device -> host readback (the --half path)."""
 
+import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from tron_tpu.utils.xfer import to_device, to_host
-
-
-def test_complex_roundtrip(rng):
-    for shape in [(8,), (3, 5), (2, 3, 4), (1, 1, 8, 8, 1)]:
-        x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(
-            np.complex64
-        )
-        a = to_device(x)
-        assert a.shape == x.shape and a.dtype == np.complex64
-        np.testing.assert_array_equal(to_host(a), x)
+from tron_jax.utils.xfer import to_host_planes
 
 
-def test_real_roundtrip(rng):
-    x = rng.standard_normal((4, 4)).astype(np.float32)
-    np.testing.assert_array_equal(to_host(to_device(x)), x)
-    x64 = rng.standard_normal((4,))
-    assert to_device(x64).dtype == np.float32
+@pytest.mark.parametrize("shape", [(8,), (3, 5), (2, 3, 4), (1, 1, 8, 8, 1)])
+def test_planes_roundtrip(rng, shape):
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(
+        np.complex64
+    )
+    re, im = to_host_planes(jnp.asarray(x))
+    assert re.dtype == np.float32 and re.shape == x.shape
+    np.testing.assert_array_equal(re + 1j * im, x)
 
 
-def test_complex128_downcast(rng):
-    x = (rng.standard_normal((3, 3)) + 1j * rng.standard_normal((3, 3)))
-    a = to_device(x)
-    assert a.dtype == np.complex64
-    np.testing.assert_allclose(to_host(a), x.astype(np.complex64))
+def test_planes_half(rng):
+    x = (rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4))).astype(
+        np.complex64
+    )
+    re, im = to_host_planes(jnp.asarray(x), np.float16)
+    assert re.dtype == np.float16 and im.dtype == np.float16
+    np.testing.assert_array_equal(re, x.real.astype(np.float16))
+    np.testing.assert_array_equal(im, x.imag.astype(np.float16))
+
+
+def test_complex64_moves_natively(rng):
+    x = (rng.standard_normal((3, 3)) + 1j * rng.standard_normal((3, 3))).astype(
+        np.complex64
+    )
+    np.testing.assert_array_equal(np.asarray(jnp.asarray(x)), x)
